@@ -1,14 +1,14 @@
-"""chirpgp_tpu: a TPU-native Bayesian chirp / instantaneous-frequency estimation
-framework.
+"""chirpgp_tpu: an accelerator-native Bayesian chirp / instantaneous-frequency
+estimation framework.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
+A ground-up JAX/XLA re-design with the capabilities of the reference
 ``spdes/chirpgp`` package (probabilistic IF estimation of chirp signals via
 SDE state-space priors and Gaussian filters/smoothers; see
-arXiv:2205.06306).  Everything here is built TPU-first:
+arXiv:2205.06306), run on an NVIDIA GPU:
 
 - batched moment maps so sigma-point propagation runs as fused einsums,
 - state-independent process covariances exploited (no per-point cov reduce),
-- square-root (Cholesky) filter forms for float32 TPU numerics,
+- square-root (Cholesky) filter forms for float32 numerics,
 - associative-scan (parallel-in-time) Kalman filtering/smoothing,
 - in-JAX L-BFGS so hyperparameter MLE jits end-to-end,
 - ``shard_map`` Monte-Carlo sweeps over device meshes.
@@ -23,7 +23,7 @@ infer      filters and smoothers (KF/RTS, EKF/EKS, SGP, CD variants,
 fit        hyperparameter estimation (in-JAX L-BFGS MLE, Gauss-Newton, LM)
 parallel   mesh/sharding utilities for Monte-Carlo sweeps
 utils      LTI discretization, simulators, metrics
-ops        Pallas kernels and native (C++) ops
+ops        native (C++) ops
 baselines  classical IF estimators (Hilbert, spectrogram, poly-MLE, ANF)
 apps       end-to-end pipelines (toymodel demos, bats, LIGO)
 """
@@ -32,29 +32,30 @@ import os as _os
 
 import jax as _jax
 
-# Multi-pass f32-accurate matmuls by default.  On TPU, XLA lowers f32
-# dot/conv to SINGLE-pass bfloat16 MXU ops unless told otherwise; for
-# this framework's small (d<=16) sequential filter algebra that default
-# is a correctness bug, not a speed win: the per-step ~1e-3 relative
-# rounding accumulates over T~3e3 scan steps into estimate-level error.
-# Measured on the CKFS Table-I column at the reference optimum: IF
-# RMSE x10 = 0.92 under default precision vs 0.777 under "high" vs
-# 0.7764 under "highest" vs 0.7762 for the float64 reference -- "high"
-# (multi-pass bf16) already restores f64-grade estimates, at 14.8M
-# fused steps/s/chip vs 11.6M for "highest" (bench.py, B=4096).  The
-# MLE objective itself was similarly corrupted under the default.
+# Full float32 matmuls by default.  On an H100, XLA's "default" and
+# "high" precisions let float32 products run in TF32 (10-bit mantissa);
+# for this framework's small sequential filter algebra the ~1e-3
+# relative rounding per product accumulates over T~3e3 scan steps.
+# experiments/check_precision_policy.py on an NVIDIA H100 80GB HBM3
+# (400 W power limit), one record at T=3141, d=4: the float32 filter NLL
+# is 1.5% ("default") and 1.9% ("high") off its float64 value and its
+# gradient 9.6% and 12% off, against 1.4e-5 and 8.8e-5 under "highest".
+# The CKFS seed-0 gate alone (0.776 at all three settings) does not show
+# it.  chip_smoke.py's bounds hold the batched estimates and fits to it.
 # Override with CHIRPGP_TPU_MATMUL_PRECISION=default|high|highest.
 _jax.config.update(
     "jax_default_matmul_precision",
-    _os.environ.get("CHIRPGP_TPU_MATMUL_PRECISION", "high"))
+    _os.environ.get("CHIRPGP_TPU_MATMUL_PRECISION", "highest"))
 
-# Persistent compilation cache: the QR-in-scan filter programs take
-# minutes to compile on remote-compile TPU backends; every runner
-# (sweeps, bench, demos) shares this cache so only the first-ever
-# process pays.  Override the location with CHIRPGP_TPU_JAX_CACHE.
-_jax.config.update(
-    "jax_compilation_cache_dir",
-    _os.environ.get("CHIRPGP_TPU_JAX_CACHE", "/tmp/chirpgp_tpu_jax_cache"))
+# Persistent compilation cache, shared by every runner (sweeps, bench,
+# demos).  JAX reads JAX_COMPILATION_CACHE_DIR itself; only when it is
+# unset does the cache go to one fixed directory of the checkout (a
+# fixed path, because the path is part of the cache key).
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.join(_os.path.dirname(_os.path.dirname(
+            _os.path.abspath(__file__))), ".jax_cache"))
 _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from chirpgp_tpu import quad, models, infer, utils

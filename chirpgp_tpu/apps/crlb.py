@@ -106,11 +106,11 @@ def filter_error_mc_chunked(lam: float, b: float, delta: float, ell: float,
     measurement draws).
 
     ``backend``: "cf" filters each chunk through the channels-first
-    square-root batched kernel (``infer.batched``, the high-throughput
-    TPU path -- MC lanes on the 128-wide lane axis); "vmap" uses the
-    per-seed covariance filters under ``jax.vmap``; "auto" picks "cf"
-    for the sigma-point method (where the lane layout is a ~4x win) and
+    square-root batched kernel (``infer.batched``, MC lanes on the last
+    axis); "vmap" uses the per-seed covariance filters under
+    ``jax.vmap``; "auto" picks "cf" for the sigma-point method and
     "vmap" for the EKF (whose per-step Jacobian has no batched kernel).
+    Which backend is faster on the H100 is not measured (ROADMAP D3).
 
     Returns per-step ``mean_err_x2``/``std_err_x2`` (chirp component
     error^2) and ``mean_err_v``/``std_err_v``.

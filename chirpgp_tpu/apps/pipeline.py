@@ -53,10 +53,11 @@ class IFEstimationConfig:
     gh_order: int = 3
     # scipy is the single-seed default: it matches the reference's
     # optimizer contract (jaxopt.ScipyMinimize L-BFGS-B, one jitted
-    # value-and-grad dispatch per iteration) and is robust on TPU
-    # runtimes where a monolithic minutes-long while_loop dispatch is
-    # not (see PARITY.md backend notes).  Batched/sharded sweeps use the
-    # in-JAX "lbfgs" so the whole MLE jits into one program.
+    # value-and-grad dispatch per iteration).  It was made the default
+    # because a monolithic minutes-long while_loop dispatch failed on the
+    # first backend; whether the in-JAX "lbfgs" should replace it on the
+    # H100 is ROADMAP D4.  Batched/sharded sweeps use the in-JAX "lbfgs"
+    # so the whole MLE jits into one program.
     optimizer: str = "scipy"      # scipy (host L-BFGS-B) | lbfgs (in-JAX)
     max_iters: int = 200
     chunk_iters: int = 0          # >0: host-chunked L-BFGS dispatches
@@ -74,10 +75,10 @@ class IFEstimationConfig:
     # lax.scan unroll for the filter recursions: the per-step bodies are
     # tiny (d<=12 algebra), so executing several steps per loop iteration
     # amortizes scan overhead at zero numerical cost (bit-identical
-    # output; measured 1.2-1.6x on the TPU bench kernels).  Default 1:
+    # output; the gain is not measured on the H100).  Default 1:
     # unrolling multiplies reverse-mode residual memory per loop
-    # iteration, and a B=300 x T=3141 batched gradient sweep at
-    # unroll=4 OOMs the 16G v5e HBM (25.7G requested, measured r4).
+    # iteration (a B=300 x T=3141 batched gradient sweep at unroll=4
+    # asked for 25.7 GB); whether 80 GB lifts that limit is ROADMAP S2.
     # Safe to raise for single-record estimation or forward-only runs.
     scan_unroll: int = 1
 
@@ -160,8 +161,8 @@ def _filter_fns(cfg: IFEstimationConfig):
         def flt(pack, ys):
             b = pack.dispersion(pack.m0)
             # remat: reverse-mode through the RK4 sigma-point scan at
-            # T~3k otherwise exceeds HBM under batched sweeps (observed:
-            # 17.3G for B=300 without it).
+            # T~3k otherwise keeps every step's RK4 stages (17.3 GB for
+            # B=300); not re-measured against the H100's 80 GB.
             return cd_sgp_filter(pack.drift, b, sgps, pack.H, cfg.Xi,
                                  pack.m0, pack.P0, cfg.dt, ys, remat=True,
                                  unroll=cfg.scan_unroll)
@@ -243,9 +244,10 @@ def estimate_if_batched(cfg: IFEstimationConfig, params: jnp.ndarray,
                         yss: jnp.ndarray):
     """High-throughput fixed-params estimation over a batch of sequences
     ``yss`` (B, T) using the channels-first batched kernels (the MC batch
-    rides the TPU lane dimension; ~3-4x over vmapping
-    :func:`estimate_if`).  Requires ``method='ghfs'`` semantics (sqrt
-    sigma-point filter+smoother) and a one-hot measurement vector.
+    on the last axis; its speed against vmapping :func:`estimate_if` is
+    not measured on the H100).  Requires ``method='ghfs'`` semantics
+    (sqrt sigma-point filter+smoother) and a one-hot measurement vector.
+    ``cfg.scan_unroll`` is forwarded to the filter scan.
 
     Returns dict with ``if_mean`` (B, T) and ``nell`` (B,).
     """
@@ -257,7 +259,7 @@ def estimate_if_batched(cfg: IFEstimationConfig, params: jnp.ndarray,
     sgps = cfg.sigma_points()
     mfs, Lfs, nll = sqrt_sgp_filter_batched(
         pack.m_and_cov, sgps, pack.H, cfg.Xi, pack.m0, pack.P0, cfg.dt,
-        yss)
+        yss, unroll=cfg.scan_unroll)
     mss, Lss = sqrt_sgp_smoother_batched(pack.m_and_cov, sgps, mfs, Lfs,
                                          cfg.dt)
     v_idx = (mss.shape[1] - 2) if cfg.model == "harmonic" else 2

@@ -4,7 +4,7 @@ Reference: ``chirpgp/classical_methods.py``.  Unlike the reference, which
 drops to host scipy.signal for the Hilbert transform and spectrogram
 ("Most of the scipy.signal functions are not supported by jax",
 ``classical_methods.py:26``), all four methods here are pure JAX -- FFT
-and framing run on the TPU and the estimators are jittable and vmappable
+and framing run on the device and the estimators are jittable and vmappable
 over Monte-Carlo seeds.
 """
 
@@ -195,9 +195,8 @@ def adaptive_notch_filter(ts: jnp.ndarray, ys: jnp.ndarray,
     """Pilot adaptive notch filter of Niedzwiecki & Meller 2011, Table II
     (reference ``classical_methods.py:196-254``).  ``ys`` is the complex
     chirp envelope, either as a complex array or as a real ``(T, 2)``
-    array of (real, imag) -- the TPU-friendly form (the TPU backend has no
-    complex arithmetic, so the recursion is carried in real pairs either
-    way).  Parameters should satisfy ``gamma_alpha << gamma_w << mu < 1``.
+    array of (real, imag) -- the form for backends without complex
+    arithmetic (the recursion is carried in real pairs either way).  Parameters should satisfy ``gamma_alpha << gamma_w << mu < 1``.
     """
     dt = ts[1] - ts[0]
 

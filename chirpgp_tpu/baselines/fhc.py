@@ -12,7 +12,7 @@ modeled as a *linear-chirp* harmonic
 and (w, alpha) are estimated by NLS over a 2-D grid with exact
 normal-equation objectives, followed by local refinement.  The grid of
 basis projections is one big batched einsum -- (n_w * n_alpha) candidates
-evaluated simultaneously on the MXU -- and the whole tracker vmaps over
+evaluated simultaneously as batched matmuls -- and the whole tracker vmaps over
 windows.
 """
 
@@ -143,10 +143,10 @@ def fhc_pitch_track_batch(yss, fs: float, num_harmonics: int,
     """Seed-batched :func:`fhc_pitch_track`: ``yss`` (B, T) -> (times (W,),
     f0_hz (B, W)).  The B * W windows are flattened and solved in
     fixed-shape chunks of ``window_chunk`` (one compile total; each
-    chunk's grid projections are one einsum batch on the MXU).  Chunking
+    chunk's grid projections are one einsum batch).  Chunking
     bounds the live grid tensor to
     ``window_chunk * n_w * n_alpha * 2L * window_length`` floats -- the
-    full window set at Monte-Carlo scale would not fit in HBM."""
+    full window set at Monte-Carlo scale would not fit in device memory."""
     yss = jnp.asarray(yss)
     B, T = yss.shape
     dt = 1.0 / fs

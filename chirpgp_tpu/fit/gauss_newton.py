@@ -1,7 +1,7 @@
 """Gauss--Newton and Levenberg--Marquardt nonlinear least squares.
 
 Used by the polynomial-IF baseline (reference ``chirpgp/gauss_newton.py``,
-``classical_methods.py:179-192``), redesigned for the TPU/XLA execution
+``classical_methods.py:179-192``), redesigned for the XLA execution
 model rather than the reference's host-looped normal equations:
 
 - The whole optimization is ONE ``lax.while_loop`` program

@@ -1,12 +1,11 @@
 """Batched channels-first square-root filters/smoothers -- the
 high-throughput Monte-Carlo path.
 
-Layout is everything on TPU: these kernels carry the Monte-Carlo batch on
-the LAST axis so it rides the 128-wide lane dimension of the (8, 128) VPU
-tiles, with the tiny state/sigma structure in sublanes.  Against the
-``vmap``-over-leading-axis formulation of ``chirpgp_tpu.infer.sqrt`` this
-measures ~3x at B=1024 and ~4x at B=4096 on TPU v5e (where leading-batch
-layouts leave the lanes 97% idle for d=4).
+These kernels carry the Monte-Carlo batch on the LAST axis, so every
+elementwise operation runs over the large batch while the tiny
+state/sigma structure is unrolled.  Its speed against the
+``vmap``-over-leading-axis formulation of ``chirpgp_tpu.infer.sqrt`` is
+not measured on the H100 (ROADMAP S6).
 
 All math is identical to the sqrt module: sigma-point prediction,
 Householder triangularization (explicit reflections), 1-D QR measurement
@@ -50,8 +49,7 @@ def tria_cf(M: jnp.ndarray) -> jnp.ndarray:
         sub = M[j:, j:, :]                                # (n-j, d-j, B)
         wv = jnp.einsum("nb,nkb->kb", v, sub)
         sub = sub - beta[None] * v[:, None, :] * wv[None]
-        # j == 0 updates the whole array (avoids an empty-index scatter
-        # constant that Pallas kernels cannot capture).
+        # j == 0 updates the whole array, so no scatter is needed.
         M = sub if j == 0 else M.at[j:, j:, :].set(sub)
     R = M[:d]
     # Zero strictly-lower entries (per-lane triu).
@@ -232,7 +230,7 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
 
     Returns ``(mss (T, d, B), Lss (T, d, d, B) lower, nll (T, B))``.
     Reference behavior contract: ``chirpgp/filters_smoothers.py:446-531``
-    (sgp_filter + sgp_smoother), fused TPU-side.
+    (sgp_filter + sgp_smoother), fused on the device.
 
     ``return_factors=False`` switches the backward pass to the affine
     covariance recursion ``ms = u + G ms'``, ``Ps = D + G Ps' G^T`` with
@@ -246,8 +244,8 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
     ``unroll`` is forwarded to the forward/backward ``lax.scan`` calls:
     the per-step bodies are tiny (d <= 8 algebra on (d, d, B) tiles), so
     unrolling several steps per loop iteration amortizes the scan's
-    per-iteration control/dispatch overhead on TPU.  Bit-identical
-    results for any value.
+    per-iteration control/dispatch overhead.  Bit-identical results for
+    any value.
 
     ``out_index`` (requires ``return_factors=False``) switches to SLIM
     output: the backward scan emits only the smoothed mean and variance
@@ -255,10 +253,9 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
     nll (T, B))`` -- instead of full ``(T, d, B)`` means and
     ``(T, d, d, B)`` covariances.  The IF pipeline consumes exactly
     ``mss[:, v, :]`` and ``Pss[:, v, v, :]`` (``g(V)`` posterior via
-    Gauss-Hermite), so for d=4 this cuts the backward pass's HBM writes
+    Gauss-Hermite), so for d=4 this cuts the backward pass's memory writes
     (d + d^2 = 20 rows/step) 10x to 2 rows/step and frees the
-    ``(T, d, d, B)`` output allocation that capped the Monte-Carlo
-    batch (3.3 GB at B=16384, the round-3 knee OOM).  The backward
+    ``(T, d, d, B)`` output allocation (3.3 GB at B=16384).  The backward
     carry -- and hence every number computed -- is identical to the
     full-output path: the emitted slices are bit-equal to
     ``mss[:, out_index]`` / ``Pss[:, out_index, out_index]``.
@@ -315,10 +312,8 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
         nll = nll + inc
         if return_factors:
             # Pack per-step (d, B)/(d, d, B) outputs into ONE
-            # (2d + 3d^2, B) row, exactly as the covariance branch below:
-            # stacking separate (T, d, d, B) scan outputs lets XLA pick d
-            # as the lane dimension and pad 4 -> 128 (a ~32x HBM blow-up
-            # at production sizes).
+            # (2d + 3d^2, B) row, exactly as the covariance branch below,
+            # so that B stays the minor dimension of the stacked output.
             packed = jnp.concatenate(
                 [mf, mp, Lf.reshape(d * d, B), X.reshape(d * d, B),
                  R[d:, d:].reshape(d * d, B)], axis=0)
@@ -329,8 +324,8 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
         D = jnp.einsum("kib,kjb->ijb", R22, R22)
         # One packed (d(2d+1), B) row per step: stacking separate
         # (T, d, d, B) outputs lets XLA's layout assignment pick d as the
-        # minor (lane) dimension and pad 4 -> 128, a 32x HBM blow-up at
-        # production sizes; packed rows keep B minor.
+        # minor dimension (padded 4 -> 128 on the first backend, a 32x
+        # blow-up); packed rows keep B minor.
         packed = jnp.concatenate(
             [u, G.reshape(d * d, B), D.reshape(d * d, B)], axis=0)
         return (mf, Lf, nll), (nll, packed)
@@ -345,7 +340,7 @@ def sqrt_sgp_filter_smoother_batched(cond_m_cov, sgps: SigmaPoints, H, Xi,
         # joint quantities computed at filter iteration k+1 (row k+1).
         # Rows are read with dynamic_index_in_dim inside the body;
         # top-level slicing of the stacked output would trigger the same
-        # lane-padded relayout the packing avoids.
+        # relayout the packing avoids.
         def bstep(carry, k):
             ms, Ls = carry
             row_k = jax.lax.dynamic_index_in_dim(packs, k, 0,

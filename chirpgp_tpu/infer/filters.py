@@ -34,7 +34,7 @@ def _run_filter(predict, m0, P0, H, Xi, ys,
     only the (d + d^2)-word carry is saved per step and the prediction
     internals (e.g. the four RK4 stages x S sigma-point propagations of
     the CD filters) are recomputed on the backward pass -- required to
-    fit batched gradients through T~3k scans in HBM.
+    fit batched gradients through T~3k scans in device memory.
 
     ``unroll`` forwards to ``lax.scan``: the per-step bodies are tiny
     (d<=12 algebra), so executing several steps per loop iteration

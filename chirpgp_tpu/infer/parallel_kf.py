@@ -2,13 +2,12 @@
 ``jax.lax.associative_scan``.
 
 The reference's filters are O(T) sequential ``lax.scan`` loops
-(``chirpgp/filters_smoothers.py:183,263,489``) -- on TPU every step is a
-tiny-matrix op, so a long sequence leaves the chip idle.  Here the LGSSM
+(``chirpgp/filters_smoothers.py:183,263,489``) -- every step is a
+tiny-matrix op, so a long sequence leaves an accelerator mostly idle.  Here the LGSSM
 filter/smoother is reformulated as an associative prefix operation over
 conditional-Gaussian elements (Sarkka & Garcia-Fernandez 2021, *Temporal
 parallelization of Bayesian smoothers*; see PAPERS.md), giving O(log T)
-depth with all element combinations running as batched (T, d, d) einsums on
-the MXU.
+depth with all element combinations running as batched (T, d, d) einsums.
 
 This is the framework's sequence-parallel path: for very long records the
 time axis can additionally be sharded over a device mesh (the SSM analog of
@@ -32,14 +31,14 @@ def blocked_scan(combine, elems, identity, block_size, reverse=False):
     associative scan across block totals.
 
     ``jax.lax.associative_scan`` over T tiny (d, d) elements costs
-    O(T log T) work in ~2 log2(T) full-array passes; on a single chip it
-    loses to the O(T) sequential scan (measured r4: 0.49x at T=3141,
-    0.03x at T=25000 -- the non-power-of-two odd/even recursion bloats
-    to hundreds of slice/concat kernels).  The TPU-idiomatic shape is
-    this one: split T into ``nb`` blocks of ``block_size``, run ONE
+    O(T log T) work in ~2 log2(T) full-array passes, and its
+    non-power-of-two odd/even recursion bloats to hundreds of
+    slice/concat kernels (on the first backend it lost to the O(T)
+    sequential scan; not measured on the H100, ROADMAP S5).  The blocked
+    shape is this one: split T into ``nb`` blocks of ``block_size``, run ONE
     sequential ``lax.scan`` of depth ``block_size`` whose every step
-    combines ``nb`` elements at once on the VPU (the time axis becomes
-    the vector axis), combine the ``nb`` block totals with a short
+    combines ``nb`` elements at once (the time axis becomes the
+    vector axis), combine the ``nb`` block totals with a short
     associative scan, and distribute the block offsets with a single
     T-wide combine.  Depth ``block_size + log2(nb) + 1`` instead of T,
     with full vector utilisation throughout -- the same
@@ -121,9 +120,8 @@ def _combine_filter(a: _FilterElement, b: _FilterElement) -> _FilterElement:
     d = a.A.shape[-1]
     I = jnp.eye(d, dtype=a.A.dtype)
     # M = (I + C_a J_b)^{-1}.  solve_small (unrolled, no pivoting) instead
-    # of jnp.linalg.solve: the general pivoted LU lowering dominates the
-    # whole parallel scan's wall time on TPU (measured r5), and I + C J
-    # with PSD C, J is exactly the well-conditioned case it requires.
+    # of jnp.linalg.solve's general pivoted LU lowering; I + C J with
+    # PSD C, J is exactly the well-conditioned case it requires.
     M = solve_small(I + a.C @ b.J, jnp.broadcast_to(I, a.C.shape))
     AjM = b.A @ M
     A = AjM @ a.A
@@ -248,7 +246,7 @@ def rts_parallel(F, Sigma, mfs, Pfs,
     mf = mfs[:-1]
     Pp = jnp.einsum("ij,tjk,lk->til", F, Pf, F) + Sigma
     # Gain E = Pf F^T Pp^{-1}, solved batched: E^T = Pp^{-1} F Pf
-    # (unrolled SPD solve -- see solve_small's TPU rationale).
+    # (unrolled SPD solve -- see solve_small's rationale).
     ET = psd_solve_batched(Pp, jnp.einsum("ij,tjk->tik", F, Pf))
     E = jnp.swapaxes(ET, -1, -2)
     g = mf - jnp.einsum("tij,jk,tk->ti", E, F, mf)

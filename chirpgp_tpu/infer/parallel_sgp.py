@@ -4,7 +4,7 @@ statistical linearization over the associative-scan Kalman machinery.
 The sequential sigma-point filter is O(T) because each step linearizes
 about the previous filtered mean.  Here the whole trajectory is
 statistically linearized at once about a nominal posterior (one big
-batched sigma-point regression over all T steps -- MXU-friendly), the
+batched sigma-point regression over all T steps), the
 resulting time-varying affine-Gaussian SSM is solved with the O(log T)
 associative-scan filter/smoother, and the procedure is iterated to the
 posterior-linearization fixed point (IPLS: Garcia-Fernandez et al.; the
@@ -169,7 +169,7 @@ def psgp_filter_smoother(cond_m_cov, sgps: SigmaPoints, H, Xi, m0, P0, dt,
     filter-smoother pass, or the previous record's posterior).  On
     strongly nonlinear configs a prior nominal can diverge in the first
     iteration (measured: the bats d=10 / freq_scale=1e4 record,
-    ``results/longrecord_timing.md``); warm-starting is the standard fix
+    ROADMAP R8); warm-starting is the standard fix
     in the iterated-smoother literature (posterior-linearization
     smoothers, Garcia-Fernandez et al.; PAPERS.md).  Entry k is the
     linearization Gaussian for the transition INTO step k, i.e. the

@@ -11,7 +11,7 @@ elements makes the decomposition exact -- results match the single-device
 scan to float tolerance.
 
 Communication: a single all-gather of (n_shards, d, d)-sized element
-tuples per pass -- rides ICI, independent of T.
+tuples per pass over the device interconnect, independent of T.
 """
 
 from functools import partial

@@ -19,8 +19,7 @@ systematic resampling step is exact and global -- particles and
 log-weights are ``all_gather``-ed (the global permutation SURVEY §7
 flags as the hard part of distributed SMC), resampled with one shared
 uniform, and each shard keeps its slice of the result.  For the d<=16
-state dims of this model family the gather is a few KB per step and
-rides the ICI.
+state dims of this model family the gather is a few KB per step.
 """
 
 import math

@@ -1,11 +1,11 @@
-"""Square-root (Cholesky-factor) filters and smoothers for float32 TPUs.
+"""Square-root (Cholesky-factor) filters and smoothers for float32.
 
 The covariance-form RTS update ``Ps = Pf + G (Ps - Pp) G^T`` is subtractive
-and loses positive-definiteness in float32 (observed on TPU: smoothed
-variances going negative on the canonical chirp config).  The reference
-sidesteps this with float64 everywhere (``demos/ghfs_mle.py:18``), which
-TPUs do not have.  Here every covariance is carried as a triangular factor
-and every update is a QR triangularization -- no subtraction of
+and loses positive-definiteness in float32 (observed: smoothed variances
+going negative on the canonical chirp config).  The reference sidesteps
+this with float64 everywhere (``demos/ghfs_mle.py:18``), at several
+times float32's cost on an accelerator.  Here every covariance is
+carried as a triangular factor and every update is a QR triangularization -- no subtraction of
 near-equal PSD matrices anywhere:
 
 - predict:  qr([sqrt(w_i) (mu_i - mp); Lq^T]) -> Up with Up^T Up = Pp
@@ -62,7 +62,7 @@ def _tria_householder(M: jnp.ndarray) -> jnp.ndarray:
     For the tall-skinny pre-arrays here (n ~ 5..100, d ~ 4..16) this is
     pure elementwise/matvec jnp -- it fuses under ``vmap`` over seeds into
     large batched contractions, avoiding the LAPACK-style QR custom call
-    whose per-step overhead dominates small problems on TPU.  Same
+    whose per-step overhead dominates small problems.  Same
     numerical character as QR (orthogonal transforms on deviations; no
     Gram squaring).
     """
@@ -92,14 +92,14 @@ def tria(M: jnp.ndarray, method: str = "hh") -> jnp.ndarray:
 
     - ``"hh"`` (default): explicit unrolled Householder reflections in
       pure jnp -- same orthogonal-transform numerics as ``"qr"`` but
-      without the linalg custom call, which dominates small problems on
-      TPU (measured ~10-15x faster at d=4, f32-stable at full sequence
-      length).
+      without the linalg custom call, whose per-call overhead dominates
+      small problems (f32-stable at full sequence length; the speed
+      ratio is not measured on the H100).
     - ``"qr"``: library Householder QR (custom call).  Same robustness;
       keep as a cross-check.
     - ``"chol"``: ``R = chol(M^T M)^T`` with column equilibration -- one
-      MXU-friendly batched matmul plus a tiny Cholesky, much cheaper than
-      Householder QR on TPU, but the Gram squares the condition number:
+      batched matmul plus a tiny Cholesky, fewer operations than
+      Householder QR, but the Gram squares the condition number:
       float32 breaks on the chirp smoother (empirically; the f32 finiteness
       test fails), so use it only in float64 or for well-conditioned
       pre-arrays.
@@ -179,9 +179,9 @@ def sqrt_sgp_filter(cond_m_cov, sgps: SigmaPoints, H: jnp.ndarray, Xi,
 
     ``remat`` checkpoints each scan step for reverse-mode AD: residual
     memory drops from O(T * sigma-point intermediates) to O(T * carry),
-    which is what makes gradient-through-the-filter MLE viable at
-    T ~ 3000+ on a single chip (the per-step recompute is cheap relative
-    to the saved HBM traffic).
+    which kept gradient-through-the-filter MLE at T ~ 3000+ within a
+    16 GB device; its cost and need on the H100's 80 GB are not measured
+    (ROADMAP S2).
     """
     _require_nonneg_weights(sgps, "sqrt_sgp_filter")
     trans = as_transition(cond_m_cov)

@@ -1,12 +1,12 @@
 """Chirp / harmonic-chirp / La Scala SDE priors and their locally
-conditional discretizations (LCD), in batched TPU-first form.
+conditional discretizations (LCD), in batched accelerator-first form.
 
 Model (reference Eq. 14; ``chirpgp/models.py:76-178``): a harmonic pair
 ``(X1, X2)`` rotating at angular rate ``2 pi g(V)`` with damping ``lam`` and
 dispersion ``b``, coupled to a Matern-3/2 prior on the latent frequency
 state ``(V, dV)``.  The measurement reads the second chirp component.
 
-TPU-first differences from the reference:
+Differences from the reference:
 
 - all conditional means are written as batched elementwise rotations (no
   ``block_diag`` matrix construction per sigma point),
@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import jax.numpy as jnp
 import jax.scipy.linalg
+import numpy as np
 
 from chirpgp_tpu.models.bijections import g
 from chirpgp_tpu.models.matern import (
@@ -82,7 +83,7 @@ def model_chirp(lam, b, ell, sigma, delta) -> StateSpaceModel:
     m0 = jnp.array([0.0, 1.0, 0.0, 0.0])
     P0 = jax.scipy.linalg.block_diag(
         delta * jnp.eye(2), stationary_cov_m32(ell, sigma))
-    H = jnp.array([0.0, 1.0, 0.0, 0.0])
+    H = np.array([0.0, 1.0, 0.0, 0.0])   # structural: concrete under jit
     return StateSpaceModel(drift, dispersion, m0, P0, H)
 
 
@@ -114,7 +115,7 @@ def model_harmonic_chirp(lam, b, ell, sigma, delta, num_harmonics: int = 1,
     m0 = jnp.array([0.0, 1.0] * K + [0.0, 0.0])
     P0 = jax.scipy.linalg.block_diag(
         delta * jnp.eye(2 * K), stationary_cov_m32(ell, sigma))
-    H = jnp.array([0.0, 1.0] * K + [0.0, 0.0])
+    H = np.array([0.0, 1.0] * K + [0.0, 0.0])   # structural: concrete under jit
     return StateSpaceModel(drift, dispersion, m0, P0, H)
 
 
@@ -137,7 +138,7 @@ def model_lascala(ell, sigma, delta) -> StateSpaceModel:
     m0 = jnp.array([0.0, 1.0, 0.0, 0.0])
     P0 = jax.scipy.linalg.block_diag(
         delta * jnp.eye(2), stationary_cov_m32(ell, sigma))
-    H = jnp.array([0.0, 1.0, 0.0, 0.0])
+    H = np.array([0.0, 1.0, 0.0, 0.0])   # structural: concrete under jit
     return StateSpaceModel(drift, dispersion, m0, P0, H)
 
 
@@ -171,7 +172,7 @@ def disc_chirp_lcd(lam, b, ell, sigma) -> Transition:
 
     def mean_cf(u, dt):
         # Channels-first: u (..., 4, B); same closed form, component axis
-        # second-to-last so the batch stays on the TPU lane dimension.
+        # second-to-last so the batch stays the minor axis.
         w = _TWO_PI * g(u[..., 2, :])
         decay = jnp.exp(-lam * dt)
         c, sn = jnp.cos(dt * w) * decay, jnp.sin(dt * w) * decay

@@ -68,7 +68,7 @@ def _monte_carlo_cov_of_sde(gen_trajectory: Callable, T: int,
     (reference ``chirpgp/cov_funcs.py:141-160``).
 
     One einsum over all time pairs instead of the reference's double-vmapped
-    per-pair outer-product sums -- O(T^2 d^2 N) in a single MXU-friendly
+    per-pair outer-product sums -- O(T^2 d^2 N) in a single batched
     contraction.
     """
     keys = jax.random.split(key, num_mcs)

@@ -35,7 +35,7 @@ def _sigma11_factor(eta):
     The direct expression cancels catastrophically in float32: ``f`` is
     O(eta^3) while both operands are O(1), so for the canonical dt=1e-3
     (eta ~ 1.7e-3, f ~ 7e-9) float32 loses *all* significant bits (observed
-    error >100x on TPU).  Switch to the Taylor series
+    error >100x in float32).  Switch to the Taylor series
     ``4/3 eta^3 - 2 eta^4 + 8/5 eta^5 - 8/9 eta^6`` for small eta, whose
     relative truncation error at the 0.15 crossover is ~2e-3 while the
     direct form's float32 rounding error there is comparable and shrinking.

@@ -3,7 +3,7 @@
 A :class:`Transition` is the discrete-time conditional law of an SDE over a
 step ``dt``: ``X_k | X_{k-1} = u ~ N(mean(u, dt), cov(u, dt))``.
 
-TPU-first design: the inference engine consumes transitions through two
+Design: the inference engine consumes transitions through two
 structured hooks instead of ``vmap``-ing an opaque ``m_and_cov``:
 
 - ``mean(u, dt)`` must broadcast over arbitrary leading batch axes of ``u``
@@ -44,9 +44,10 @@ class Transition:
     mean_cf : callable ``(..., d, B), dt -> (..., d, B)`` or None
         Channels-first conditional mean: the state-component axis is
         second-to-last and a (large) batch axis is last.  This is the
-        layout the batched TPU kernels use -- the batch rides the 128-wide
-        lane dimension of the VPU tiles, which measures ~3-4x faster than
-        batch-leading layouts for these tiny state dimensions.  When None,
+        layout the batched kernels use, so that elementwise work runs
+        over the large batch axis for these tiny state dimensions (its
+        speed against batch-leading layouts is not measured on the H100;
+        ROADMAP S6).  When None,
         the batched kernels fall back to transposing around ``mean``.
     """
 

@@ -1,1 +1,1 @@
-"""Low-level ops: native (C++) components and Pallas TPU kernels."""
+"""Low-level ops: native (C++) components."""

@@ -4,7 +4,8 @@ The reference parallelizes MC seeds with single-process ``jax.vmap`` plus
 bash/Slurm process fan-out (``tetralith/run_local.sh``, SURVEY.md 2.4).
 Here the seed axis is a first-class mesh axis: sweeps are ``shard_map``-ped
 over devices with per-shard ``vmap``, and reductions ride XLA collectives
-(``psum``) over ICI.  Multi-host pods extend the same mesh via
+(``psum``) over the device interconnect.  Multi-host runs extend the
+same mesh via
 ``jax.distributed.initialize`` -- the program does not change.
 """
 

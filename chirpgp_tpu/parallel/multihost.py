@@ -1,10 +1,10 @@
-"""Multi-host (pod) runtime utilities.
+"""Multi-host runtime utilities.
 
 The reference's cross-node story is Slurm process fan-out with filesystem
-joins (``tetralith/*.sh``).  Here a pod is one JAX multi-controller
+joins (``tetralith/*.sh``).  Here a cluster is one JAX multi-controller
 program: ``initialize_distributed`` brings up the runtime, and the global
-mesh spans all hosts' devices, with collectives riding ICI within a slice
-and DCN across slices.  All sweep/NUTS/SMC utilities in this package take
+mesh spans all hosts' devices, with XLA's collectives within and across
+hosts.  All sweep/NUTS/SMC utilities in this package take
 a mesh argument and are host-count agnostic.
 """
 
@@ -22,8 +22,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialize the JAX distributed runtime (no-op on a single host).
 
-    On TPU pods the arguments are auto-detected from the environment;
-    pass them explicitly for other fabrics.
+    Where no cluster environment announces them, pass the coordinator
+    address (``host:port``), process count and this process's id.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -3,14 +3,14 @@
 Approximates :math:`\\int z(x) N(x | m, P) dx \\approx \\sum_i w_i z(m + L \\xi_i)`
 with ``L`` the lower Cholesky factor of ``P``.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 - Rules are immutable NamedTuples whose weights/abscissae are host-side
   NumPy arrays: they enter jitted programs as compile-time literals (never
   as implicit traced arguments), so trace-time validity checks are free.
 - ``gen_sigma_points`` and the moment reducers broadcast over arbitrary
   leading batch axes, so a ``vmap``/``shard_map`` over Monte-Carlo seeds turns
-  every reduction into a large batched einsum that XLA tiles onto the MXU.
+  every reduction into a large batched einsum.
 - Moment reduction uses the deviation (centered) form
   :math:`P = \\sum_i w_i (z_i - \\bar z)(z_i - \\bar z)^T`, which is
   numerically preferable in float32 to the raw-moment form used by the

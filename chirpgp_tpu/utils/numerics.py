@@ -112,12 +112,10 @@ def solve_small(A, B):
     Gaussian elimination without pivoting.
 
     ``A``: (..., d, d); ``B``: (..., d, k); batched over the leading
-    axes.  ``jnp.linalg.solve`` on TPU lowers tiny batched systems to a
-    general pivoted LU routine that runs ~three orders of magnitude
-    below the VPU's throughput (measured r5: the associative-scan
-    KF/RTS spent its entire 0.03x-of-sequential wall time inside the
-    per-combine solves); this unrolled form is pure elementwise
-    arithmetic on the batch lanes.
+    axes.  ``jnp.linalg.solve`` lowers tiny batched systems to a
+    general pivoted LU routine; this unrolled form is pure elementwise
+    arithmetic over the batch.  Which is faster on the H100 is not
+    measured (ROADMAP S5, D5).
 
     No pivoting: intended for the well-conditioned systems of the
     parallel-scan combines -- ``I + C J`` with ``C``, ``J`` PSD (all
@@ -130,9 +128,8 @@ def solve_small(A, B):
     if d == 2:
         # Closed-form adjugate: 2x2 is by far the hottest case (M32
         # filtering elements), and the tiny expression keeps the HLO
-        # small inside scan bodies (the unrolled-GE form's op count,
-        # multiplied through the blocked-scan structure at T=25000,
-        # produced a program the remote TPU compiler hung on).
+        # small inside scan bodies (the unrolled-GE form's op count is
+        # multiplied through the blocked-scan structure at T=25000).
         a, b = A[..., 0, 0], A[..., 0, 1]
         c, e = A[..., 1, 0], A[..., 1, 1]
         det = a * e - b * c
@@ -169,8 +166,8 @@ def psd_solve_batched(P, B, eps: float = 1e-30):
     ``P``: (..., d, d); ``B``: (..., d, k).  Unrolled Cholesky
     (:func:`psd_cholesky`, degenerate-safe) + unrolled substitutions --
     the batched-leading-axes counterpart of :func:`psd_solve`, for the
-    same TPU reason as :func:`solve_small` (avoid the slow general LU
-    lowering of ``jnp.linalg.solve`` on tiny batched systems).
+    same reason as :func:`solve_small` (elementwise arithmetic in place
+    of the general LU lowering of ``jnp.linalg.solve``).
     """
     L = psd_cholesky(P, eps)
     d = P.shape[-1]

@@ -3,9 +3,9 @@ reference ``demos/classical_methods/{hilbert,mean_spectrogram,anf,
 mle_polynomial}.py``), all JAX-native.
 
 The FFT-based methods (Hilbert, spectrogram) need complex arithmetic,
-which the experimental TPU backend lacks -- this demo runs on CPU by
-default (pass --tpu to keep the default platform; the ANF runs there via
-its real-pair path).
+which the first accelerator backend lacked -- this demo runs on CPU by
+default (pass --accelerator to keep JAX's default platform; the ANF runs
+there via its real-pair path).
 
 Usage: python demos/classical_methods.py [--method all]
 """
@@ -34,11 +34,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--method", default="all",
                     choices=["all", "hilbert", "spectrogram", "anf", "poly"])
-    ap.add_argument("--tpu", action="store_true",
-                    help="keep the default (TPU) platform")
+    ap.add_argument("--accelerator", action="store_true",
+                    help="keep JAX's default platform instead of the CPU")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.accelerator:
         jax.config.update("jax_platforms", "cpu")
 
     dt, T, Xi = 1e-3, 3141, 0.1
@@ -62,7 +62,7 @@ def main():
     if args.method in ("all", "anf"):
         env = gen_chirp_envelope(ts, constant_mag(1.0), phase_func) \
             + math.sqrt(Xi) * jax.random.normal(jax.random.PRNGKey(3), (T,))
-        # On TPU pass the real-pair form instead of complex arrays.
+        # A backend without complex numbers takes the real-pair form.
         mu = 0.015
         gamma_w = mu ** 2 / 2
         gamma_alpha = mu * gamma_w / 4          # anf.py:35-37 contract

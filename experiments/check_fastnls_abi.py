@@ -11,8 +11,7 @@ semantics, ``fastf0nls.py:24-113``) -- must load our ``libfast_nls.so``
 and produce estimates identical to the repo's own wrapper
 (``chirpgp_tpu/baselines/fastnls.py``).
 
-This closes the last undocumented native-baseline gap (VERDICT r3 missing
-#4): the reference's fastF0Nls column cannot be regenerated in this
+This closes the last undocumented native-baseline gap: the reference's fastF0Nls column cannot be regenerated in this
 environment (its .so is not vendored and there is no network egress), but
 the wrapper CONTRACT -- what a reference user's driver code would call --
 is validated end-to-end against our native implementation.

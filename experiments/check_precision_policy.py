@@ -1,24 +1,21 @@
-"""On-TPU regression check for the matmul-precision policy (PARITY.md r3 §1).
+"""Check the package's matmul-precision policy on the card.
 
-Reproduces the round-3 isolation that motivated the package default
-``jax_default_matmul_precision = "high"``: the CKFS (cubature sigma-point)
-filter+smoother estimate at the REFERENCE'S OWN learnt optimum on seed-0
-constant-magnitude data.  Measured on TPU v5e:
+Under XLA's ``default``, ``high`` and ``highest`` matmul precision, in one
+process, this measures
 
-    IF RMSE x10 = 0.918  under XLA's default (single-pass bf16) lowering
-    IF RMSE x10 = 0.776  under the package "high" (multi-pass) policy
-    IF RMSE x10 = 0.7762 for the float64 reference (CPU)
+- the CKFS seed-0 accuracy gate (``bench.accuracy_gate_rmse_x10``: the
+  fused float32 filter+smoother estimate at the reference's learnt
+  optimum; float64 reads IF RMSE x10 = 0.776, the bound is 0.80), and
+- the relative error of one record's float32 filter NLL and gradient at
+  the MLE init point against float64 (``chip_smoke.nll_grad_rel_errors``),
 
-Exit code 0 iff the policy-protected estimate lands at <= --threshold
-(default 0.85, comfortably separating 0.776 from 0.918).  Pass
---also-default to additionally measure under the unfixed lowering in a
-subprocess and require it to be WORSE than the threshold -- proving the
-guard still binds on this hardware generation.
+prints the card's name and power limit and one line per setting, and
+exits 0 iff the package's own setting passes all three bounds.  On a GPU,
+``default`` and ``high`` allow TF32 for float32 matrix products;
+``highest`` does not.  A CPU computes float32 products exactly at every
+setting, so the script refuses to run without a GPU:
 
-Run on the real TPU (the failure mode is the TPU MXU lowering; CPU f32
-passes trivially):
-
-    python experiments/check_precision_policy.py --also-default
+    python experiments/check_precision_policy.py
 """
 
 # Allow running straight from a source checkout (no pip install).
@@ -26,69 +23,38 @@ import os as _os
 import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-import argparse
-import json
-import subprocess
-import sys
+import jax
+import numpy as np
 
-
-def measure() -> float:
-    """IF RMSE x10 of the f32 CKFS estimate at the reference optimum,
-    seed 0, constant magnitude (whatever precision policy is active)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from chirpgp_tpu.apps import IFEstimationConfig, estimate_if
-    from chirpgp_tpu.utils import rmse
-
-    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
-    data = np.load(_os.path.join(root, "results/data/toydata_const.npz"))
-    ref = np.load(_os.path.join(root,
-                                "results/reference/ckfs_const.npz"))
-    ys = jnp.asarray(data["ys"][0], dtype=jnp.float32)
-    true_freqs = jnp.asarray(data["true_freqs"], dtype=jnp.float32)
-    params = jnp.asarray(ref["params"][0], dtype=jnp.float32)
-
-    cfg = IFEstimationConfig(method="ghfs", quadrature="cubature",
-                             form="sqrt")
-    est = jax.jit(lambda p, y: estimate_if(cfg, p, y))(params, ys)
-    return float(rmse(true_freqs, est["if_mean"])) * 10.0
+import chip_smoke
+from bench import (ACC_GATE, accuracy_gate_rmse_x10,
+                   gpu_name_and_power_limit, require_gpu)
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--threshold", type=float, default=0.85)
-    ap.add_argument("--also-default", action="store_true",
-                    help="also measure under CHIRPGP_TPU_MATMUL_PRECISION="
-                         "default and require it to exceed the threshold")
-    ap.add_argument("--_measure-only", action="store_true",
-                    help=argparse.SUPPRESS)
-    args = ap.parse_args()
-
-    if args._measure_only:
-        print(json.dumps({"rmse_x10": measure()}))
-        return
-
-    val = measure()
-    ok = val <= args.threshold
-    print(f"policy-protected CKFS seed-0 estimate: RMSE x10 = {val:.4f} "
-          f"(threshold {args.threshold}) -> {'OK' if ok else 'FAIL'}")
-
-    if args.also_default:
-        env = dict(_os.environ, CHIRPGP_TPU_MATMUL_PRECISION="default")
-        out = subprocess.run(
-            [sys.executable, _os.path.abspath(__file__), "--_measure-only"],
-            capture_output=True, text=True, env=env, timeout=1200)
-        if out.returncode != 0:
-            print(f"default-precision subprocess failed:\n{out.stderr[-2000:]}")
-            sys.exit(1)
-        val_def = json.loads(out.stdout.strip().splitlines()[-1])["rmse_x10"]
-        binds = val_def > args.threshold
-        print(f"unprotected (default bf16 lowering): RMSE x10 = "
-              f"{val_def:.4f} -> guard {'still binds' if binds else 'NO LONGER binds'}")
-        ok = ok and binds
-
-    sys.exit(0 if ok else 1)
+    package = jax.config.jax_default_matmul_precision or "default"
+    dev = require_gpu()
+    print(f"nvidia-smi: {gpu_name_and_power_limit()}")
+    print(f"device {dev.platform} {dev.device_kind}; package precision "
+          f"{package!r}; bounds: gate RMSE x10 <= {ACC_GATE}, NLL rel <= "
+          f"{chip_smoke.TOL_NLL_REL}, gradient rel <= "
+          f"{chip_smoke.TOL_GRAD_REL}")
+    data = np.load(_os.path.join(chip_smoke.DATA, "toydata_const.npz"))
+    theta = chip_smoke.FIT_CFG.default_init_theta()
+    passed = {}
+    for prec in ("default", "high", "highest"):
+        with jax.default_matmul_precision(prec):
+            gate = accuracy_gate_rmse_x10()
+            nll_rel, grad_rel = chip_smoke.nll_grad_rel_errors(
+                theta, data["ys"][0])
+        passed[prec] = (gate <= ACC_GATE and nll_rel <= chip_smoke.TOL_NLL_REL
+                        and grad_rel <= chip_smoke.TOL_GRAD_REL)
+        print(f"  {prec:8s} gate RMSE x10 = {gate:.4f}  NLL rel = "
+              f"{nll_rel:.3g}  gradient rel = {grad_rel:.3g}  "
+              f"{'pass' if passed[prec] else 'FAIL'}")
+    print(f"package setting {package!r}: "
+          f"{'OK' if passed[package] else 'FAIL'}")
+    _sys.exit(0 if passed[package] else 1)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,8 @@
-"""Generate the float64 CPU ground truth for the parallel-in-time bench
-section: smoothed means of the M32 KF/RTS on the bench's exact record
-(T=3141 and T=25000), so the TPU run can attribute f32 error to the
-sequential scan, the flat associative scan, and the blocked scan
-separately (VERDICT r4 #2: the blocked-vs-seq deviation needs a
-tolerance contract grounded in measurement).
+"""Generate the float64 CPU ground truth for the parallel-in-time
+checks: smoothed means of the M32 KF/RTS on a fixed chirp record
+(T=3141 and T=25000), so a device run can attribute f32 error to the
+sequential scan, the flat associative scan, the blocked scan and the
+time-sharded scan separately (``chip_smoke.py --four`` reads it).
 
 Writes results/data/parallel_kf_ref.npz.  Run on CPU:
     python experiments/gen_parallel_ref.py
@@ -39,10 +38,10 @@ for T in (3141, 25000):
     mss, Pss = rts(F, Sig, mfs, Pfs)
     out[f"mss_T{T}"] = np.asarray(mss)
     out[f"nll_T{T}"] = np.asarray(nll[-1])
-    # The exact f32 measurement sequence: the TPU bench must consume
-    # THESE bytes, not regenerate them -- TPU f32 transcendentals differ
-    # from CPU's, and a regenerated input would put an ~5e-2 input-
-    # difference floor under every err64 key (measured r5 try3).
+    # The exact f32 measurement sequence: device runs must consume THESE
+    # bytes, not regenerate them -- device f32 transcendentals differ
+    # from the CPU's, and a regenerated input puts an input-difference
+    # floor under every error against this truth.
     out[f"ys_T{T}"] = np.asarray(ys, dtype=np.float32)
 np.savez("results/data/parallel_kf_ref.npz", **out)
 print("written results/data/parallel_kf_ref.npz",

@@ -1,5 +1,5 @@
 """Pregenerate the paired toymodel measurement data shared by BOTH the
-TPU sweeps and the reference-regeneration parity runs.
+device sweeps and the reference-regeneration parity runs.
 
 The paper's Table I is a *paired* comparison: every method sees the same
 100 measurement realizations (reference ``tetralith/rnd_keys.npy`` +
@@ -7,9 +7,9 @@ per-job in-line data gen, ``jobs/ghfs_mle.py:26-47``).  The vendored key
 file was produced by an older JAX whose ``random.split`` derivation
 differs from the current one, so exact key-array parity is impossible;
 instead this repo fixes the pairing contract at the DATA level: generate
-once in float32 (the TPU operating precision; float32 draws are
-bit-identical across CPU/TPU backends for a given key) and have both the
-TPU sweeps and the reference-code regeneration consume the same arrays.
+once in float32 (the device operating precision) and have both the
+device sweeps and the reference-code regeneration consume the same
+arrays.
 
 Writes ``{out}/toydata_{mag}.npz`` with ys (N, T) f32, true_freqs (T,),
 ts (T,), and the key array used.

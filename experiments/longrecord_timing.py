@@ -1,4 +1,4 @@
-"""Long-record harmonic pipeline timing (VERDICT r4 #8): a synthetic
+"""Long-record harmonic pipeline timing: a synthetic
 bat-call analog of the reference's ONLY published timing contract --
 ``real_applications/bats/myotis_myotis_analysis.py:81-85,109-112``, which
 prints the filter+smoother wall time vs the spectrogram wall time on the
@@ -10,7 +10,7 @@ the LIGO parity run (PARITY.md) -- both sides of the contract run on a
 synthetic analog: a 4-harmonic FM downsweep (60->25 kHz fundamental,
 Gaussian envelope) at fs=250 kHz with T=25334 samples, standardized.
 
-Measured on the real TPU:
+Measured on the device:
   - sequential sigma-point filter+smoother wall (cov and sqrt forms),
     post warm-up, via the production ``analyze_bat_call`` path;
   - the blocked parallel-in-time iterated-SLR sigma-point pass
@@ -20,9 +20,10 @@ Measured on the real TPU:
   - IF-track accuracy on the envelope core (where the call has energy)
     vs the known true fundamental, for every method.
 
-Writes ``results/longrecord_timing.md``.
+Writes a markdown report to ``--out`` (ROADMAP R3 turns this into a
+benchmark cell).
 
-Run from the repo root on the TPU:
+Run from the repo root on the GPU:
     python experiments/longrecord_timing.py
 """
 

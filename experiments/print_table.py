@@ -72,7 +72,7 @@ def print_block(methods, results_dir, title, markdown=False):
 
 
 def print_parity(results_dir, ref_dir, markdown=False):
-    title = "Parity: this framework (TPU f32) vs reference code (CPU f64), same paired data"
+    title = "Parity: this framework (device f32) vs reference code (CPU f64), same paired data"
     print(f"\n## {title}" if markdown else f"\n=== {title} ===")
     if markdown:
         print("\n| method | mag | ours mean / median / #NaN | "
@@ -96,8 +96,8 @@ def print_parity(results_dir, ref_dir, markdown=False):
 
 
 # Columns whose large RMSE is the MODEL's own failure mode, verified at
-# parity with the regenerated reference (VERDICT r3 weak #7): flagged in
-# the paired table so they are not mistaken for repo bugs.
+# parity with the regenerated reference: flagged in the paired table so
+# they are not mistaken for repo bugs.
 MODEL_INHERENT = {("lascala_ekfs", "damped"):
                   "matches regenerated reference (22.5/37.3) -- La Scala "
                   "model's own failure mode on damped magnitudes"}

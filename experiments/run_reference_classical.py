@@ -6,7 +6,7 @@ classical_methods.py``, CPU, float64) under the exact job protocols of
 ``tetralith/jobs/{hilbert,mean_spectrogram,mle_polynomial,anf}.py``,
 with the same pregenerated keys (PRNGKey(999) split 1000,
 ``tetralith/generate_rndkeys.py:8-12``), so every column is seed-paired
-with the repo's TPU-native classical sweeps.
+with the repo's classical sweeps.
 
 The two remaining classical columns CANNOT be regenerated here by
 construction (documented in PARITY.md):

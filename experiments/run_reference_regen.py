@@ -4,7 +4,7 @@ BASELINE.md defines parity against *regenerated* reference results: the
 reference publishes no numbers, only the machinery.  This driver runs the
 reference code itself (``/root/reference/chirpgp``, CPU, float64, SciPy
 L-BFGS-B -- the exact ``tetralith/jobs/*_mle.py`` semantics) over the SAME
-pregenerated measurement data the TPU sweeps consume
+pregenerated measurement data the device sweeps consume
 (``experiments/gen_toymodel_data.py``), so the comparison is seed-paired.
 
 Two environment shims are installed before importing the reference package

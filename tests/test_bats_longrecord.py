@@ -3,16 +3,16 @@
 The reference's only published real-data timing contract is the Myotis
 analysis (``real_applications/bats/myotis_myotis_analysis.py:59-88``):
 harmonic model, 4 harmonics, d=10 cubature, fixed hand-set params,
-freq_scale=1e4, Xi=1e-4.  ``results/longrecord_timing.md`` records the
-full synthetic-analog run on TPU (cov form: 3.55 s / 1.7 Hz IF RMS);
-this test pins the same configuration's f32 ACCURACY on CPU at a
+freq_scale=1e4, Xi=1e-4.  ``experiments/longrecord_timing.py`` runs the
+full synthetic analog (ROADMAP R3 makes it a benchmark cell); this test
+pins the same configuration's f32 ACCURACY on CPU at a
 faithful sweep rate (first half of the same record, onset included --
 the filter locks on during the rising envelope edge), so a numerical
 regression in the d=10 harmonic cov path cannot land silently.
 
 The sqrt form is intentionally NOT pinned here: it has a documented f32
 accuracy cliff on this extreme config (huge hand-set prior V-std x
-freq_scale=1e4; correct at f64 -- see longrecord_timing.md findings).
+freq_scale=1e4; correct at f64 -- ROADMAP R6).
 """
 
 import jax
@@ -62,7 +62,7 @@ def test_myotis_analog_cov_f32_tracks_fundamental(f32_mode):
     ifm = np.asarray(est["if_mean"])
     assert np.isfinite(ifm).all()
     rms = float(np.sqrt(np.mean((ifm[core] - freq[:T_crop][core]) ** 2)))
-    # Measured 1.7 Hz (CPU f32 and TPU f32 agree); 50 Hz leaves ~30x
+    # Measured 1.7 Hz in CPU f32; 50 Hz leaves ~30x
     # headroom while still catching any real numerical break (the
     # failure modes observed are in the tens of kHz).
     assert rms < 50.0, f"IF-track RMS {rms:.1f} Hz"

@@ -1,14 +1,14 @@
 """Checkpoint-fingerprint and paired-printer regression tests.
 
-Pins the round-3 advisor/verdict fixes:
+Pins two review fixes:
 
 - a shape-compatible checkpoint from a DIFFERENT sweep (other tag,
   other measurement set, or a pre-fingerprint file) must never be
-  resumed (ADVICE r3: a stale foreign ``.ckpt_harmonic_ekfs.npz``
-  silently poisoned a fresh sweep);
+  resumed (a stale foreign ``.ckpt_harmonic_ekfs.npz`` once silently
+  poisoned a fresh sweep);
 - ``experiments/print_table.py --paired`` must reproduce the
   seed-paired both-finite statistics PARITY.md quotes, from the
-  ``.npz`` files alone (VERDICT r3 weak #6), with the reference
+  ``.npz`` files alone, with the reference
   printer's NaN accounting
   (``paper_plots_tables/print_rmse_table.py:47-56``) extended to
   both sides.
@@ -116,7 +116,7 @@ def test_tail_cap_freezes_stragglers(capsys):
 
 
 def test_tail_cap_not_engaged_from_start(capsys):
-    """ADVICE r4 (medium): a batch whose active count STARTS at the tail
+    """A batch whose active count STARTS at the tail
     threshold (e.g. B=1, where tail_thresh=1) must run to max_iters /
     convergence, not be silently truncated to ~tail_iters iterations --
     the cap requires at least one lane to have been frozen first."""

@@ -154,8 +154,8 @@ def test_tme_exact_on_lti():
 
 
 def test_batched_mean_matches_pointwise():
-    """The batched LCD mean equals per-point evaluation (the TPU fast path
-    is exact, not approximate)."""
+    """The batched LCD mean equals per-point evaluation (the batched fast
+    path is exact, not approximate)."""
     trans = disc_chirp_lcd(LAM, B, ELL, SIGMA)
     key = jax.random.PRNGKey(3)
     chi = jax.random.normal(key, (81, 4))

@@ -4,7 +4,7 @@
    ``test/test_ekfs.py:11-62``: discrete-time EKF on the TME-2
    discretization must track the continuous-discrete moment-ODE EKF on a
    chaotic nonlinear drift, rtol 0.2).
-2. A TPU-shape float32 finite-difference gradient check through the
+2. A production-shape float32 finite-difference gradient check through the
    remat'd square-root filter at T=3141 (the production MLE gradient
    path), run in a subprocess so the suite's global x64 config doesn't
    mask f32 behavior.

@@ -144,7 +144,7 @@ def test_psgp_warm_start_nominal():
     """A data-informed warm-start nominal (one sequential pass) lets a
     SINGLE psgp iteration land near the sequential smoother -- the
     standard fix for first-iteration divergence from a prior nominal on
-    strongly nonlinear configs (results/longrecord_timing.md)."""
+    strongly nonlinear configs (ROADMAP R8)."""
     dt, T_, Xi = 1e-3, 600, 0.1
     ts = jnp.linspace(dt, dt * T_, T_)
     freq_func, phase_func = meow_freq(offset=8.0)

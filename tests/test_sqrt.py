@@ -79,7 +79,7 @@ def test_sqrt_ekf_eks_match_cov_form():
 def test_sqrt_chirp_f32_stays_finite():
     """The float32 sqrt pipeline stays finite on the canonical chirp config
     where the covariance-form smoother produces negative variances (this is
-    the TPU production path; here exercised with CPU float32 inputs)."""
+    the float32 production path; here exercised on the CPU)."""
     from chirpgp_tpu.toymodels import gen_chirp, constant_mag, meow_freq
 
     dt, T_, Xi = 1e-3, 3141, 0.1
